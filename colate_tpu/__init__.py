@@ -1,13 +1,13 @@
-"""colate_tpu — a TPU-native coalescence-rate engine.
+"""colate_tpu — a coalescence-rate engine in JAX.
 
 A from-scratch reimplementation of the capabilities of leospeidel/Colate
-(reference: /root/reference) designed for JAX/XLA/Pallas on TPU:
+built on JAX/XLA, run on an NVIDIA GPU or the CPU:
 
 - host-side columnar preprocessing of site streams (numpy / C++),
 - device-side binning of mutation-age evidence into block histograms,
 - a fully vectorized EM over [bootstraps, age_bins, epochs] tensors,
 - block-bootstrap as a batched matmul,
-- multi-chip scaling via ``jax.sharding`` + ``shard_map`` + ``psum``.
+- multi-device scaling via ``jax.sharding`` + ``shard_map`` + ``psum``.
 
 The reference implementation is a single-core C++ CLI; nothing here is a
 translation of it.  File-format compatibility (``.mut``, ``.colate.in``,
@@ -20,27 +20,30 @@ __version__ = "0.1.0"
 import os as _os
 
 
-def enable_compilation_cache(path: str | None = None) -> None:
+# the persistent compile cache's default home: fixed inside the checkout,
+# because the directory is part of every cache key
+_DEFAULT_CACHE = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
+)
+
+
+def enable_compilation_cache() -> None:
     """Persist XLA compilations across processes (compiles of the f64
-    EM program are expensive; steady-state iteration is microseconds)."""
+    EM program are expensive; steady-state iteration is microseconds).
+
+    Where JAX_COMPILATION_CACHE_DIR is set, JAX reads it and no other
+    directory is set here; otherwise the cache lives in ``.jax_cache``
+    at the root of the checkout."""
     import jax
 
-    cache_dir = path or _os.environ.get(
-        "COLATE_TPU_JAX_CACHE", _os.path.expanduser("~/.cache/colate_tpu_jax")
-    )
-    _os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", _DEFAULT_CACHE)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 def enable_x64() -> None:
-    """Enable float64 in JAX (required for reference-parity numerics).
-
-    TPU executes f64 via software emulation; the EM tensors are tiny
-    ([bootstraps, 185, epochs]) so this costs little, while the
-    throughput-critical binning pass runs in f32/f64 mixed precision.
-    """
+    """Enable float64 in JAX (required for reference-parity numerics)."""
     import jax
 
     jax.config.update("jax_enable_x64", True)

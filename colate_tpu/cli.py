@@ -15,7 +15,7 @@ import sys
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="colate-tpu",
-        description="TPU-native coalescence-rate engine (Colate-compatible)",
+        description="JAX coalescence-rate engine (Colate-compatible)",
     )
     p.add_argument("--mode", required=True,
                    help="mut, make_tmp, preprocess_mut, print_tmp, compare_tmp, "
@@ -66,8 +66,9 @@ def _build_parser() -> argparse.ArgumentParser:
                         "or bit-exact replay of the reference's MC draws")
     p.add_argument("--em_dtype", choices=["auto", "float64", "float32"],
                    default="auto",
-                   help="EM working precision (auto: f64 on CPU/parity, "
-                        "f32 on TPU analytic runs)")
+                   help="EM working precision (auto: f64; float32 runs "
+                        "the E-step in f32 under the tiered contract of "
+                        "tests/test_em_f32.py)")
     p.add_argument("--checkpoint", action="store_true",
                    help="cache per-block histograms to <output>.suffstats.npz "
                         "keyed by an input fingerprint; reruns skip "
@@ -79,7 +80,8 @@ def _build_parser() -> argparse.ArgumentParser:
                         "parse_bamvcf layout, coal.cpp:1229-1510)")
     p.add_argument("--devices", type=int,
                    help="mode mut: shard bootstrap-EM over the first N "
-                        "local devices (parallel/mesh.py); default = "
+                        "devices of the default backend (parallel/mesh.py; "
+                        "an error if it has fewer); default = "
                         "single-device")
     p.add_argument("--binning",
                    choices=["auto", "native", "device", "sharded"],

@@ -9,7 +9,7 @@ Format (reference src/mutations.cpp:342-397, src/anc.cpp:6-47, 494-546)::
 Each tree line holds 2N-1 node records in node-index order (leaves
 0..N-1, internal N..2N-2); ``parent`` is -1 for the root.  All trees of
 a file share N, so the whole file loads into dense [num_trees, 2N-1]
-arrays — the natural layout for batched (TPU) tree kernels.
+arrays — the natural layout for batched device tree kernels.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The reference's ``CollapsedMatrix<T>`` (src/collapsed_matrix.hpp:12-302)
 is a flattened vector-of-vectors with binary ``DumpToFile`` /
 ``ReadFromFile``: ``(uint64 rows, uint64 cols, T data[rows*cols])``
-(collapsed_matrix.hpp:201-209, 257-270).  The TPU framework's in-memory
+(collapsed_matrix.hpp:201-209, 257-270).  This engine's in-memory
 equivalent is just a 2-D numpy array; this module provides the
 byte-compatible dump/read of the rectangular form so files written by
 Relate tooling can be exchanged.

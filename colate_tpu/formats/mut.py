@@ -66,20 +66,14 @@ class MutTable:
         """Load a .mut file.
 
         fast=True parses via the native C++ decoder (colate_tpu.native)
-        when available, else the 11 leading columns with pandas' C
-        engine; the slow pure-Python path is the reference-grammar
-        fallback and the only one writers needing full `rest` fidelity
-        via pandas should request (the native path preserves `rest`).
+        when available; the pure-Python reference-grammar parser is the
+        fallback (both preserve `rest`).
         """
         if fast:
             try:
                 t = cls._read_native(path)
                 if t is not None:
                     return t
-            except Exception:
-                pass
-            try:
-                return cls._read_fast(path)
             except Exception:
                 pass  # fall back to the reference-grammar line parser
         data = _read_text(path)
@@ -191,80 +185,6 @@ class MutTable:
             allele_valid=valid,
         )
 
-    @classmethod
-    def _read_fast(cls, path: str) -> "MutTable":
-        import io as _io
-        import os
-
-        import pandas as pd
-
-        if not os.path.exists(path) and os.path.exists(path + ".gz"):
-            path = path + ".gz"
-        df = pd.read_csv(
-            path,
-            sep=";",
-            skiprows=1,
-            header=None,
-            usecols=list(range(11)),
-            names=[
-                "snp_id",
-                "pos",
-                "dist",
-                "rs_id",
-                "tree",
-                "branch",
-                "not_mapping",
-                "flipped",
-                "age_begin",
-                "age_end",
-                "mutation_type",
-            ],
-            dtype={
-                "snp_id": np.int64,
-                "pos": np.int64,
-                "dist": np.int64,
-                "rs_id": str,
-                "tree": np.int64,
-                "branch": str,
-                "flipped": np.int64,
-                "age_begin": np.float32,  # reference parses with stof
-                "age_end": np.float32,
-                "mutation_type": str,
-            },
-            engine="c",
-            na_filter=False,  # "N/A" is a (junk) allele string, not a NaN
-        )
-        with open(path, "rb") as fh:
-            first = fh.read(2)
-        header = ""
-        # recover the header line cheaply
-        opener = gzip.open if first == b"\x1f\x8b" else open
-        with opener(path, "rt") as fh:
-            header = fh.readline().rstrip("\n")
-        stripped = df["branch"].astype(str).str.strip()
-        nbr = np.where(
-            stripped.str.len().to_numpy() == 0,
-            0,
-            stripped.str.count(" ").to_numpy() + 1,
-        ).astype(np.int64)
-        branch_str = stripped.to_numpy(dtype=object)
-        n = len(df)
-        return cls(
-            header=header,
-            snp_id=df["snp_id"].to_numpy(),
-            pos=df["pos"].to_numpy(),
-            dist=df["dist"].to_numpy(),
-            rs_id=df["rs_id"].to_numpy(dtype=object),
-            tree=df["tree"].to_numpy(),
-            branch=_LazyBranches(branch_str),
-            num_branches=nbr,
-            flipped=df["flipped"].to_numpy(),
-            age_begin=df["age_begin"].to_numpy().astype(np.float64),
-            age_end=df["age_end"].to_numpy().astype(np.float64),
-            mutation_type=df["mutation_type"].to_numpy(dtype=object),
-            rest=np.full(n, "", dtype=object),
-        )
-
     def write(self, path: str) -> None:
         """Dump in the reference layout (mutations.cpp:286-336)."""
         out = io.StringIO()
@@ -328,24 +248,6 @@ class _FlatBranches:
 
     def __getitem__(self, i):
         return self._f[self._off[i] : self._off[i + 1]].tolist()
-
-    def __iter__(self):
-        for i in range(len(self)):
-            yield self[i]
-
-
-class _LazyBranches:
-    """List-like view over the branch-index strings, parsed on access."""
-
-    def __init__(self, branch_str: np.ndarray):
-        self._s = branch_str
-
-    def __len__(self) -> int:
-        return int(self._s.shape[0])
-
-    def __getitem__(self, i):
-        b = self._s[i]
-        return [int(x) for x in b.split()] if b.strip() else []
 
     def __iter__(self):
         for i in range(len(self)):

@@ -4,7 +4,7 @@ The reference carries a 1,868-line header (src/tree_sequence.hpp:29-1868)
 converting between Relate's marginal-tree format and tskit ``.trees``
 files (DumpAsTreeSequence / ConvertFromTreeSequence); it is compiled into
 relate_lib but not called by any Colate/CoalRate mode.  This module is
-the TPU-framework counterpart: the conversion itself is pure columnar
+this engine's counterpart: the conversion itself is pure columnar
 array shuffling (no tskit C library needed), emitting the standard
 node/edge/site/mutation tables.  When the optional ``tskit`` Python
 package is importable the tables can be materialised as a real

@@ -56,7 +56,7 @@ class MutResult:
     is_ancient: bool
     ep_null: int
     timings: dict
-    em_provider: str = ""  # which EM backend ran (native/jax:*/pallas:*)
+    em_provider: str = ""  # which EM backend ran (native/jax:*/mesh[N]:*)
 
 
 def resolve_tmp_inputs(cfg: MutRunConfig):
@@ -294,6 +294,14 @@ def compute_suffstats(
     return sh_b, ns_b, se_b, ne_b, num_sites, num_blocks
 
 
+def resolve_em_dtype(em_dtype: str) -> str:
+    """EM working precision for a requested ``--em_dtype``: "auto" is
+    float64 on every backend; float32 only when asked for."""
+    if em_dtype not in ("auto", "float64", "float32"):
+        raise ValueError(f"unknown em_dtype {em_dtype!r}")
+    return "float32" if em_dtype == "float32" else "float64"
+
+
 def run_mut(cfg: MutRunConfig) -> MutResult:
     import jax.numpy as jnp
 
@@ -454,47 +462,24 @@ def finish_from_suffstats(
     )
     t0 = time.time()
     em_dtype = cfg.em_dtype
-    out = None
     from colate_tpu.config import EM_HOST_MAX_B
 
     if cfg.devices and cfg.devices >= 1 and not parity:
         # explicit mesh run (--devices N, N=1 included): bootstrap
         # replicates are independent EM fixed-points, sharded over the
-        # first N local devices (parallel/mesh.py); pallas f32 kernel on
-        # TPU meshes, replicate-sequential f64 XLA elsewhere — bitwise
-        # identical for any N (the multichip dryrun asserts this)
+        # first N devices of the default backend (parallel/mesh.py);
+        # replicate-sequential, so every replicate runs the same program
+        # whatever N is
         from colate_tpu.parallel.mesh import make_mesh, sharded_run_em
 
+        em_dtype = resolve_em_dtype(em_dtype)
         mesh = make_mesh(cfg.devices)
-        on_cpu = all(d.platform == "cpu" for d in mesh.devices.ravel())
-        use_pallas = (
-            em_dtype in ("auto", "float32")
-            and not on_cpu
-            and os.environ.get("COLATE_EM_PALLAS", "1") != "0"
-        )
         rates, logl, iters = sharded_run_em(
             mesh, epochs, init_rates, shared_counts, notshared_counts,
-            backend="pallas" if use_pallas else "xla",
+            dtype=em_dtype,
         )
-        provider = f"mesh[{mesh.devices.size}]:" + (
-            "pallas:float32" if use_pallas else "jax:float64"
-        )
-        rates = np.asarray(rates)
-        logl = np.asarray(logl)
-        iters = np.asarray(iters)
-        timings["em"] = time.time() - t0
-        from colate_tpu.utils.progress import log_event as _log
-
-        _log("mut_em", provider=provider, iters=int(np.max(iters)),
-             sec=round(timings["em"], 4))
-        return MutResult(
-            epochs=epochs, rates=rates, logl=logl, iterations=iters,
-            num_sites=num_sites, num_blocks=num_blocks,
-            is_ancient=is_ancient, ep_null=ep_null, timings=timings,
-            em_provider=provider,
-        )
-
-    if cfg.checkpoint and not parity:
+        provider = f"mesh[{mesh.devices.size}]:jax:{em_dtype}"
+    elif cfg.checkpoint and not parity:
         # engine-level resume THROUGH the estimator: the EM loop state
         # (it, rates, logl, conv, iters) checkpoints every few thousand
         # iterations, so a killed run resumes mid-EM and writes the
@@ -504,12 +489,7 @@ def finish_from_suffstats(
 
         from colate_tpu.ops.em import run_em_checkpointed
 
-        if em_dtype == "auto":
-            import jax as _jax
-
-            em_dtype = (
-                "float64" if _jax.default_backend() == "cpu" else "float32"
-            )
+        em_dtype = resolve_em_dtype(em_dtype)
         h = hashlib.sha256()
         h.update(np.ascontiguousarray(epochs).tobytes())
         h.update(np.ascontiguousarray(shared_counts).tobytes())
@@ -521,89 +501,35 @@ def finish_from_suffstats(
             cfg.output + ".emstate.npz", fp, dtype=em_dtype,
         )
         provider = f"jax:{em_dtype}(checkpointed)"
-        rates = np.asarray(rates)
-        logl = np.asarray(logl)
-        iters = np.asarray(iters)
-        timings["em"] = time.time() - t0
-        from colate_tpu.utils.progress import log_event as _log
-
-        _log("mut_em", provider=provider, iters=int(np.max(iters)),
-             sec=round(timings["em"], 4))
-        return MutResult(
-            epochs=epochs, rates=rates, logl=logl, iterations=iters,
-            num_sites=num_sites, num_blocks=num_blocks,
-            is_ancient=is_ancient, ep_null=ep_null, timings=timings,
-            em_provider=provider,
-        )
-
-    if em_dtype == "auto" and B <= EM_HOST_MAX_B and not parity:
-        # One-shot host/device crossover measured at B ≈ 800 on a v5e
-        # (see config.EM_HOST_MAX_B): below it the host provider
-        # (ops/em.py:run_em_native, f64) beats device-EM + compile; above
-        # it the batched [B,185,E] JAX path wins even paying the compile.
-        # Parity runs are excluded: the native provider's ~1e-13
-        # deviation from the JAX f64 EM could in rare cases flip the
-        # 6th printed significant digit at a rounding boundary, so
-        # byte-identity runs always take the JAX f64 path below.
-        from colate_tpu.ops.em import run_em_native
-
-        out = run_em_native(epochs, init_rates, shared_counts, notshared_counts)
-    provider = "native"
-    if out is not None:
-        rates, logl, iters = out
     else:
-        if em_dtype == "auto":
-            import jax
+        out = None
+        if em_dtype == "auto" and B <= EM_HOST_MAX_B and not parity:
+            # small batches: the host provider (ops/em.py:run_em_native,
+            # f64) beats a device EM plus its compile in a one-shot
+            # process (see config.EM_HOST_MAX_B).  Parity runs are
+            # excluded: the native provider's ~1e-13 deviation from the
+            # JAX f64 EM could in rare cases flip the 6th printed
+            # significant digit at a rounding boundary, so byte-identity
+            # runs always take the JAX f64 path.
+            from colate_tpu.ops.em import run_em_native
 
-            em_dtype = (
-                "float64"
-                if (parity or jax.default_backend() == "cpu")
-                else "float32"
+            out = run_em_native(
+                epochs, init_rates, shared_counts, notshared_counts
             )
-        with profile_trace():  # COLATE_TPU_TRACE=<dir> captures the EM
-            rates = None
-            if em_dtype == "float32" and os.environ.get(
-                "COLATE_EM_PALLAS", "1"
-            ) != "0":
-                # fused Pallas backend: same f32 contract as the XLA
-                # path (tests/test_em_pallas.py), K iterations per
-                # kernel launch with everything resident in VMEM
-                import jax
-
-                if jax.default_backend() not in ("cpu",):
-                    from colate_tpu.ops.em_pallas import run_em_pallas
-
-                    try:
-                        rates, logl, iters = run_em_pallas(
-                            epochs, init_rates,
-                            shared_counts, notshared_counts,
-                        )
-                        provider = "pallas:float32"
-                    except Exception as exc:  # Mosaic/platform gaps
-                        log_event("mut_em_pallas_fallback", error=repr(exc))
-                        rates = None
-            if rates is None:
-                provider = f"jax:{em_dtype}"
-                import contextlib
-
-                import jax
-
-                ctx = contextlib.nullcontext()
-                if em_dtype == "float64" and jax.default_backend() != "cpu":
-                    # f64 EMs (parity path) run on the local CPU backend:
-                    # the TPU has no native f64 units, and on
-                    # remote-compile platforms the device compile queue
-                    # can stall an otherwise host-bound parity run
-                    ctx = jax.default_device(jax.local_devices(backend="cpu")[0])
-                    provider = "jax:float64(cpu)"
-                with ctx:
-                    rates, logl, iters = run_em(
-                        jnp.asarray(epochs),
-                        jnp.asarray(init_rates),
-                        jnp.asarray(shared_counts),
-                        jnp.asarray(notshared_counts),
-                        dtype=em_dtype,
-                    )
+        if out is not None:
+            rates, logl, iters = out
+            provider = "native"
+        else:
+            em_dtype = resolve_em_dtype(em_dtype)
+            provider = f"jax:{em_dtype}"
+            with profile_trace():  # COLATE_TPU_TRACE=<dir> captures the EM
+                rates, logl, iters = run_em(
+                    jnp.asarray(epochs),
+                    jnp.asarray(init_rates),
+                    jnp.asarray(shared_counts),
+                    jnp.asarray(notshared_counts),
+                    dtype=em_dtype,
+                )
     rates = np.asarray(rates)
     logl = np.asarray(logl)
     iters = np.asarray(iters)

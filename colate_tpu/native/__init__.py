@@ -1,7 +1,7 @@
 """Native host-side I/O (C++, ctypes-bound).
 
 The reference's host layer is C++ (relate_lib text parsers, htslib
-binary decode); this package is its TPU-framework counterpart: flat
+binary decode); this package is its counterpart here: flat
 columnar decoders compiled to ``libcolate_io.so`` and exposed through a
 minimal C ABI.  Loading is best-effort — if the shared library is
 missing we try one quiet in-tree build, and on any failure every

@@ -4,7 +4,7 @@
 // inside relate_lib (src/mutations.cpp:57-257) and record-at-a-time
 // fread loops (coal/coal.cpp:2125-2145).  Here the same grammars are
 // decoded in one pass into flat columnar buffers that numpy can wrap
-// zero-copy — the TPU pipeline consumes columns, never rows.
+// zero-copy — the pipeline consumes columns, never rows.
 //
 // C ABI only (consumed via ctypes; no pybind11 in this environment).
 //

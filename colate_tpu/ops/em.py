@@ -21,9 +21,7 @@ closed forms in linear f64 with `expm1` stabilisation:
   P_e  = S_e·(1−e^{−λΔ})               (S_e = e^{−H_e})
   T1_e = E[T·1{T∈e}] = S_e·((t_{e+1}+1/λ)(1−e^{−λΔ}) − Δ)
 
-which stay accurate both for λΔ → 0 and λΔ → ∞.  TPU executes f64 via
-emulation; the tensors are [B,185,E] so this is microseconds per
-iteration.
+which stay accurate both for λΔ → 0 and λΔ → ∞.
 """
 
 from __future__ import annotations
@@ -98,29 +96,6 @@ def _gdiv(lam, x):
     return jnp.where(lam > 0, g / jnp.where(lam > 0, lam, 1.0), 0.0)
 
 
-def _stable_den() -> bool:
-    """Whether the f32 E-step uses the cancellation-free exposure
-    identity (see :func:`_gdiv`).  Default: ONLY on the CPU backend.
-    Measured A/B on the bench fixture (B=128, identified tier = rates
-    >= 1e-4, near-floor tier = rates >= 1e-6, vs the f64 host EM):
-
-    - CPU f32:  old 3.0e-6 / 9.2e-3  ->  stable 2.9e-6 / 2.9e-3
-    - TPU f32:  old 3.5e-6 / 9.1e-3  ->  stable 6.7e-5 / 5.0e-2
-
-    On TPU the rearrangement loses: its transcendental rounding
-    (exp/expm1 at ~1e-6 relative) dominates the term g(x) = 1-(1+x)e^-x
-    for moderate x, where the original difference form happens to
-    cancel those errors.  COLATE_EM_STABLE_DEN=0/1 overrides."""
-    import os
-
-    env = os.environ.get("COLATE_EM_STABLE_DEN")
-    if env is not None:
-        return env != "0"
-    import jax
-
-    return jax.default_backend() == "cpu"
-
-
 def _e_step_all_bins(epochs, rates, t, k):
     """E-step for all age bins at once.
 
@@ -176,7 +151,7 @@ def _e_step_all_bins(epochs, rates, t, k):
     # are immune; this is the linear-space equivalent)
     srev = jnp.flip(jnp.cumsum(jnp.flip(num_lin, 1), axis=1), 1)
     integ = (srev - num_lin) * zinv[:, None]
-    if epochs.dtype == jnp.float32 and _stable_den():
+    if epochs.dtype == jnp.float32:
         # cancellation-free exposure (see docstring): full epochs e<k,
         # the partial event epoch e==k, and the open last epoch
         lam_full32 = tab["lam"]
@@ -250,7 +225,7 @@ def _e_step_all_bins(epochs, rates, t, k):
     # denominators, coal_EM.cpp:437-440)
     srev_n = jnp.flip(jnp.cumsum(jnp.flip(raw_n, 1), axis=1), 1)
     integ_n = (srev_n - raw_n) * zrel_inv[:, None]
-    if epochs.dtype == jnp.float32 and _stable_den():
+    if epochs.dtype == jnp.float32:
         # stable exposures: e>k full epochs Srel·g(λΔ)/λ (inv·Srel for
         # the open one), event epoch g(λ(t_{k+1}−t))/λ + (t−t_k)·em1_hi
         D_rel_body = Srel * _gdiv(lam_full[None, :], lam_full[None, :] * dt_full[None, :])
@@ -434,8 +409,8 @@ def _m_step(rates_old, num_tot, den_tot):
 
     The num==0 cascade is a fill-forward, vectorised as a running-max of
     the last index with num!=0 followed by a gather — no sequential scan
-    (a length-E lax.scan inside the EM while-loop costs E tiny sequential
-    kernels per iteration on TPU)."""
+    (a length-E lax.scan inside the EM while-loop would cost E tiny
+    sequential kernels per iteration)."""
     import jax
     import jax.numpy as jnp
 
@@ -525,15 +500,17 @@ def run_em(
     stopping points).
 
     ``dtype`` selects the E-step working precision: "float64" (default;
-    reference-parity numerics) or "float32" (TPU fast path — f64 is
-    software-emulated on TPU).  The log-likelihood driving the
+    reference-parity numerics) or "float32" (opt-in, under the tiered
+    contract of tests/test_em_f32.py).  The count-weighted contractions
+    run at ``Precision.HIGHEST`` so an f32 run never drops to a
+    reduced-precision matrix unit.  The log-likelihood driving the
     1-1e-7 convergence ratio always accumulates in f64.
 
-    ``check_every`` (default: 1 in f64/parity mode, 8 in the f32 fast
-    path) unrolls that many EM iterations per while-loop step and tests
-    convergence only at chunk boundaries — a TPU loop step has fixed
-    latency, so amortising it across K unrolled iterations is ~K× faster
-    for the tiny [B,185,E] tensors.  The per-chunk threshold is scaled to
+    ``check_every`` (default: 1 in f64/parity mode, 8 in the f32 path)
+    unrolls that many EM iterations per while-loop step and tests
+    convergence only at chunk boundaries — each loop step has a fixed
+    latency, so amortising it across K unrolled iterations pays off for
+    the tiny [B,185,E] tensors.  The per-chunk threshold is scaled to
     K·(1−ratio): EM improvements decrease monotonically, so the chunked
     rule stops within K iterations of the reference's per-iteration rule
     (identical fixed point; parity mode keeps K=1 for bit-exactness).
@@ -556,17 +533,21 @@ def run_em(
 
     e_step_b = jax.vmap(lambda r: _e_step_all_bins(epochs_w, r, t, k))
 
+    hi = jax.lax.Precision.HIGHEST
+
     def iteration(rates):
         num_s, den_s, logl_s, num_n, den_n, logl_n = e_step_b(rates)
-        num_tot = jnp.einsum("bn,bne->be", sc, num_s) + jnp.einsum(
-            "bn,bne->be", nc, num_n
-        )
-        den_tot = jnp.einsum("bn,bne->be", sc, den_s) + jnp.einsum(
-            "bn,bne->be", nc, den_n
-        )
+        num_tot = jnp.einsum(
+            "bn,bne->be", sc, num_s, precision=hi
+        ) + jnp.einsum("bn,bne->be", nc, num_n, precision=hi)
+        den_tot = jnp.einsum(
+            "bn,bne->be", sc, den_s, precision=hi
+        ) + jnp.einsum("bn,bne->be", nc, den_n, precision=hi)
         ll = jnp.einsum(
-            "bn,bn->b", sc, logl_s, preferred_element_type=f64
-        ) + jnp.einsum("bn,bn->b", nc, logl_n, preferred_element_type=f64)
+            "bn,bn->b", sc, logl_s, precision=hi, preferred_element_type=f64
+        ) + jnp.einsum(
+            "bn,bn->b", nc, logl_n, precision=hi, preferred_element_type=f64
+        )
         new_rates = jax.vmap(_m_step)(rates, num_tot, den_tot)
         return new_rates, ll
 
@@ -642,9 +623,8 @@ def run_em_sequential(
     Here every replicate executes the identical B=1 trace regardless of
     how many replicates share its device, so ANY bootstrap sharding is
     bitwise transparent — the property parallel/mesh.py:sharded_run_em
-    (backend="xla") and the driver's multichip dryrun rely on.  Tiny
-    [185, E] tensors make the lost batch parallelism irrelevant off the
-    hot path (large-B TPU runs use the fused Pallas kernel instead).
+    and the multichip dryrun (__graft_entry__.py) rely on.  The price is
+    that a device runs its replicates one after another.
     """
     import jax
     import jax.numpy as jnp

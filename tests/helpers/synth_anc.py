@@ -37,6 +37,36 @@ def random_tree(g, N: int, rate: float = 1e-4):
     return parent, blen, ages
 
 
+def random_trees(g, T: int, N: int, rate: float = 1e-4):
+    """Vectorised Kingman topologies: parent [T, 2N-1] + node ages [T, 2N-1].
+
+    All T trees advance one coalescence per step (N-1 steps of O(T)
+    vector work) — :func:`random_tree` is fine at test scale but takes
+    minutes at 60k trees.  Leaves are 0..N-1 at age 0; internal node
+    N+s is the s-th coalescence, so internal ages are nondecreasing."""
+    M = 2 * N - 1
+    parent = np.full((T, M), -1, np.int64)
+    ages = np.zeros((T, M), np.float64)
+    rows = np.arange(T)
+    act = np.tile(np.arange(N), (T, 1))  # active lineage ids per slot
+    t = np.zeros(T, np.float64)
+    for s in range(N - 1):
+        k = N - s
+        t += g.exponential(1.0 / (rate * k * (k - 1) / 2.0), T)
+        i = g.integers(0, k, T)
+        j = g.integers(0, k - 1, T)
+        j += j >= i
+        a, b = act[rows, i], act[rows, j]
+        new = N + s
+        parent[rows, a] = new
+        parent[rows, b] = new
+        ages[:, new] = t
+        lo, hi = np.minimum(i, j), np.maximum(i, j)
+        act[rows, lo] = new
+        act[rows, hi] = act[:, k - 1]
+    return parent, ages
+
+
 def make_anc_mut(
     prefix: str,
     chrom: str,

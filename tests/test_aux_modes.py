@@ -176,7 +176,7 @@ def test_cond_coal_rates_byte_parity_at_scale(oracle, tmp_path):
 
 
 @pytest.mark.oracle
-def test_cond_coal_rates_ancient_golden(tmp_path):
+def test_cond_coal_rates_ancient_golden(oracle, tmp_path):
     """Nonzero sample ages route through the per-pair truncation variant
     (coal.cpp:4885-4999) — byte parity with the binary."""
     from colate_tpu import native
@@ -214,7 +214,7 @@ def test_cond_coal_rates_ancient_golden(tmp_path):
 
 
 @pytest.mark.oracle
-def test_cond_coal_rates_mask_map_golden(cond_fixture, tmp_path):
+def test_cond_coal_rates_mask_map_golden(oracle, cond_fixture, tmp_path):
     """Mask passing-fraction + genetic-map recrate filters against the
     reference binary (coal.cpp:5296-5385 window + cursor semantics)."""
     import numpy as np
@@ -309,7 +309,7 @@ def test_cond_coal_rates_mask_map_golden(cond_fixture, tmp_path):
 
 @pytest.mark.oracle
 @pytest.mark.parametrize("groups", ["FOC,CON", "FOC,NONEXIST"])
-def test_cond_coal_rates_golden(cond_fixture, tmp_path, groups):
+def test_cond_coal_rates_golden(oracle, cond_fixture, tmp_path, groups):
     ref_out = str(tmp_path / f"ref_{groups.replace(',', '_')}.txt")
     subprocess.run(
         [

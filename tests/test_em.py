@@ -156,7 +156,7 @@ def test_em_bootstrap_batch_consistency():
 
 
 def test_run_em_f32_close_to_f64():
-    """The TPU fast path (f32 E-step, f64 logl) must track the f64 EM."""
+    """The f32 path (f32 E-step, f64 logl) must track the f64 EM."""
     import jax.numpy as jnp
 
     from colate_tpu.ops.em import run_em

@@ -1,7 +1,6 @@
-"""Accuracy contract of the f32 device-EM path (the TPU default for
-large bootstrap batches).
+"""Accuracy contract of the opt-in f32 EM path (``--em_dtype float32``).
 
-Measured behaviour (r3, CPU XLA and v5e give the same picture):
+Measured behaviour (CPU XLA):
 
 - a single f32 E-step at converged rates matches f64 to ~1e-7;
 - the counts -> rates map is well-conditioned (1e-7 input perturbation
@@ -36,8 +35,8 @@ The contract pinned here, end-to-end through the full mut pipeline:
 - below that: no guarantee (the reference's own bootstrap CIs span
   orders of magnitude there).
 
-f64 stays the default for parity runs, CPU backends, and B <= 800
-(host provider); bench.py records the measured relerr per run.
+f64 is the default on every backend; chip_smoke.py checks the f32 path
+against it under this contract on the GPU.
 """
 
 import numpy as np

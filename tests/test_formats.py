@@ -119,3 +119,25 @@ def test_collapsed_matrix_roundtrip(tmp_path):
     raw = open(p, "rb").read()
     assert raw[:16] == np.asarray([7, 5], np.uint64).tobytes()
     assert raw[16 : 16 + a.nbytes] == a.tobytes()
+
+
+@pytest.mark.parametrize("native_reader", [True, False])
+def test_mut_read_needs_no_pandas(tmp_path, monkeypatch, native_reader):
+    """MutTable.read goes native reader -> reference-grammar parser; no
+    tier imports pandas, so the main path runs where pandas is absent."""
+    import sys
+
+    from colate_tpu import native
+
+    p = str(tmp_path / "a.mut")
+    tbl = make_mut(p, 300, seed=6)
+    monkeypatch.setitem(sys.modules, "pandas", None)  # import fails
+    if not native_reader:
+        monkeypatch.setattr(native, "load", lambda: None)
+    elif native.load() is None:
+        pytest.skip("native library unavailable")
+    back = MutTable.read(p)
+    np.testing.assert_array_equal(tbl.pos, back.pos)
+    np.testing.assert_array_equal(tbl.num_branches, back.num_branches)
+    np.testing.assert_allclose(tbl.age_begin, back.age_begin, rtol=1e-5)
+    assert list(tbl.mutation_type) == list(back.mutation_type)

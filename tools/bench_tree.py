@@ -37,39 +37,10 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def _random_trees(g, T: int, N: int, rate: float = 1e-4):
-    """Vectorised Kingman topologies: parent [T, 2N-1] + node ages [T, 2N-1].
-
-    All T trees advance one coalescence per step (N-1 steps of O(T)
-    vector work) — the per-tree Python generator in tests/helpers is
-    fine at test scale but takes minutes at 60k trees."""
-    import numpy as np
-
-    M = 2 * N - 1
-    parent = np.full((T, M), -1, np.int64)
-    ages = np.zeros((T, M), np.float64)
-    rows = np.arange(T)
-    act = np.tile(np.arange(N), (T, 1))  # active lineage ids per slot
-    t = np.zeros(T, np.float64)
-    for s in range(N - 1):
-        k = N - s
-        t += g.exponential(1.0 / (rate * k * (k - 1) / 2.0), T)
-        i = g.integers(0, k, T)
-        j = g.integers(0, k - 1, T)
-        j += j >= i
-        a, b = act[rows, i], act[rows, j]
-        new = N + s
-        parent[rows, a] = new
-        parent[rows, b] = new
-        ages[:, new] = t
-        lo, hi = np.minimum(i, j), np.maximum(i, j)
-        act[rows, lo] = new
-        act[rows, hi] = act[:, k - 1]
-    return parent, ages
-
-
 def ensure_fixture(num_trees: int) -> dict:
     import numpy as np
+
+    from helpers.synth_anc import random_trees
 
     os.makedirs(BENCH_DIR, exist_ok=True)
     prefix = os.path.join(BENCH_DIR, "trees")
@@ -86,7 +57,7 @@ def ensure_fixture(num_trees: int) -> dict:
     g = np.random.default_rng(4242)
     T, N = num_trees, N_HAP
     M = 2 * N - 1
-    parent, ages = _random_trees(g, T, N)
+    parent, ages = random_trees(g, T, N)
     blen = np.where(
         parent >= 0, np.take_along_axis(ages, np.maximum(parent, 0), 1) - ages, 0.0
     )
